@@ -87,23 +87,6 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def issue_ms(fn, iters: int = 50) -> float:
-    """Time per call of ``fn`` launched eagerly back to back (CUDA events):
-    where the host launches slower than the device runs, this is the
-    host's time per launch."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 class Smoke:
     def __init__(self, dev):
         from repro_torch import configs
@@ -367,9 +350,7 @@ class Smoke:
                 f"{rec['ms']:.5f}, plain {rec['plain_ms']:.5f}, library "
                 f"{rec['library_ms']:.5f}, bound {rec['bound_ms']:.6f} "
                 f"({rec['bound_by']}: {nbytes / 1e6:.3f} MB, "
-                f"{flops / 1e9:.4f} GFLOP); eager launches back to back: "
-                f"kernel {issue_ms(kernel):.4f} ms, library "
-                f"{issue_ms(library):.4f} ms")
+                f"{flops / 1e9:.4f} GFLOP)")
 
         # rmsnorm: the decode step's shape (47 of every 49 launches)
         x, w = self.rms_inputs(SLOTS, bf16)

@@ -5,10 +5,6 @@ from repro_torch.configs import qwen2_0_5b
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     LayerSpec,
-    MLAConfig,
-    MoEConfig,
-    RGLRUConfig,
-    XLSTMConfig,
     smoke_variant,
 )
 

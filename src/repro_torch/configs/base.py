@@ -1,15 +1,15 @@
 """Architecture config system (the port's own copy of ``repro.configs.base``).
 
 An ArchConfig fully determines the model: layer pattern (mixers + FFNs),
-dimensions, positional scheme, and family-specific sub-configs. Layer layout
+dimensions and positional scheme. Layer layout
 is ``prefix`` followed by ``pattern`` repeated ``scan_repeats`` times:
 
     num_layers == len(prefix) + len(pattern) * scan_repeats
 
-The fields match the JAX package's config one for one, so a config built
-there and one built here describe the same model. The port runs only the
-dense path so far (``global_attn`` + ``swiglu``); the other sub-configs are
-kept so every config of the JAX package can be expressed.
+The fields are those of the JAX package's config, less the family
+sub-configs (MoE, MLA, RG-LRU, xLSTM) of families the port does not run yet:
+it runs only the dense path (``global_attn`` + ``swiglu``), so a dense config
+built there and one built here describe the same model.
 """
 from __future__ import annotations
 
@@ -30,43 +30,6 @@ class LayerSpec:
             raise ValueError(f"unknown mixer {self.mixer!r}")
         if self.ffn not in FFNS:
             raise ValueError(f"unknown ffn {self.ffn!r}")
-
-
-@dataclass(frozen=True)
-class MoEConfig:
-    num_experts: int
-    top_k: int
-    d_expert: int
-    num_shared_experts: int = 0
-    d_shared: int = 0
-    capacity_factor: float = 1.25
-    aux_loss_coef: float = 0.001
-    bias_routing: bool = False
-
-
-@dataclass(frozen=True)
-class MLAConfig:
-    q_lora_rank: int
-    kv_lora_rank: int
-    qk_nope_head_dim: int
-    qk_rope_head_dim: int
-    v_head_dim: int
-
-
-@dataclass(frozen=True)
-class RGLRUConfig:
-    lru_width: int
-    conv_width: int = 4
-    c: float = 8.0
-
-
-@dataclass(frozen=True)
-class XLSTMConfig:
-    mlstm_proj_factor: float = 2.0
-    slstm_proj_factor: float = 4.0 / 3.0
-    conv_width: int = 4
-    chunk_size: int = 256
-    qkv_block_size: int = 4
 
 
 @dataclass(frozen=True)
@@ -92,10 +55,6 @@ class ArchConfig:
     logit_softcap: float | None = None
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     embed_scale: bool = False
-    moe: MoEConfig | None = None
-    mla: MLAConfig | None = None
-    rglru: RGLRUConfig | None = None
-    xlstm: XLSTMConfig | None = None
     frontend: str | None = None
     num_image_tokens: int = 2928
     num_codebooks: int = 1
@@ -150,16 +109,4 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     )
     if cfg.dense_d_ff:
         changes["dense_d_ff"] = 128
-    if cfg.moe:
-        changes["moe"] = dataclasses.replace(
-            cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2), d_expert=32,
-            d_shared=32 if cfg.moe.num_shared_experts else 0)
-    if cfg.mla:
-        changes["mla"] = MLAConfig(
-            q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=hd,
-            qk_rope_head_dim=8, v_head_dim=hd)
-    if cfg.rglru:
-        changes["rglru"] = dataclasses.replace(cfg.rglru, lru_width=d)
-    if cfg.xlstm:
-        changes["xlstm"] = dataclasses.replace(cfg.xlstm, chunk_size=8)
     return dataclasses.replace(cfg, **changes)

@@ -5,13 +5,16 @@ Every model hot spot calls ``hooks.call("<api>", ...)``. Each API has a fixed
 signature contract, a plain PyTorch reference (the ``torch-ref`` tier, always
 correct, runs on any device) and zero or more system-optimized tiers
 registered by provider tag (``cuda-sm90``: kernels written by hand for
-Hopper). ``bind(profile)`` picks the best tier per API that the profile
-supports; ``with hooks.use(binding):`` scopes it.
+Hopper). ``bind(profile)`` picks the first registered tier per API that the
+profile supports; ``with hooks.use(binding):`` scopes it. Outside any such
+scope ``call`` runs the reference on CPU tensors only and raises for tensors
+on any other device, so a caller on the card always names its tier: the
+plain one explicitly, with ``hooks.use(hooks.bind(None))``.
 
 Probes: a tier may carry a probe that builds and runs a tiny candidate kernel
 the way the tier would execute on the target. With ``bind(profile,
 probe=True)`` a failed probe on a CPU profile rejects the tier (recorded in
-the manifest) and dispatch falls to the next priority. On a profile whose
+the manifest) and dispatch falls to the next tier. On a profile whose
 device is a GPU, a failed probe raises instead: a Hopper tier must never be
 dropped to the plain tier quietly on the card.
 """
@@ -49,7 +52,6 @@ class Implementation:
     provider: str
     fn: Callable[..., Any]
     supports: Callable[[Any], bool]  # predicate over a SystemProfile
-    priority: int = 0  # higher wins when several impls support a profile
     probe: Callable[[Any], Any] | None = None
 
 
@@ -59,14 +61,12 @@ class TierChoice:
 
     api: str
     provider: str
-    priority: int
     probed: bool
     rejected: tuple[tuple[str, str], ...] = ()  # (provider, error)
 
     def to_dict(self) -> dict:
         return {
             "provider": self.provider,
-            "priority": self.priority,
             "probed": self.probed,
             "rejected": [list(r) for r in self.rejected],
         }
@@ -137,14 +137,13 @@ def register_api(name: str, signature: str,
 
 def register_impl(api_name: str, provider: str, fn: Callable[..., Any], *,
                   supports: Callable[[Any], bool] | None = None,
-                  priority: int = 0,
                   probe: Callable[[Any], Any] | None = None) -> None:
     if provider == REFERENCE:
         raise HookError(f"{REFERENCE!r} is the reference tier's own tag")
     with _LOCK:
         api = get_api(api_name)
         api.impls[provider] = Implementation(
-            provider, fn, supports or (lambda profile: True), priority, probe)
+            provider, fn, supports or (lambda profile: True), probe)
 
 
 def get_api(name: str) -> AcceleratedAPI:
@@ -167,39 +166,22 @@ def _run_probe(impl: Implementation, profile: Any) -> str | None:
     return None if (out is None or out) else "probe returned falsy"
 
 
-def bind(profile: Any = None, *, overrides: Mapping[str, str] | None = None,
-         probe: bool = False) -> Binding:
-    """Best available tier per API for ``profile`` (the reference everywhere
-    when ``profile`` is None).
+def bind(profile: Any = None, *, probe: bool = False) -> Binding:
+    """First tier per API, in registration order, that ``profile`` supports
+    (the reference everywhere when ``profile`` is None).
 
-    ``overrides`` pins an API to a provider tag (``torch-ref`` or a
-    registered provider); pinned tiers are not probed. With ``probe=True``
-    every candidate tier must pass its probe before it may bind; on a GPU
-    profile (``profile.device != "cpu"``) a failed probe raises.
+    With ``probe=True`` every candidate tier must pass its probe before it
+    may bind; on a GPU profile (``profile.device != "cpu"``) a failed probe
+    raises.
     """
-    overrides = dict(overrides or {})
-    unknown = sorted(set(overrides) - set(_REGISTRY))
-    if unknown:
-        raise HookError(f"overrides for unknown APIs: {unknown}")
     strict = getattr(profile, "device", "cpu") != "cpu"
     label = getattr(profile, "name", REFERENCE)
     choices: dict[str, TierChoice] = {}
     for name, api in _REGISTRY.items():
-        pinned = overrides.get(name)
-        if pinned == REFERENCE:
-            choices[name] = TierChoice(name, REFERENCE, 0, probed=False)
-            continue
-        if pinned is not None:
-            if pinned not in api.impls:
-                raise HookError(f"no implementation {pinned!r} for API {name!r}")
-            choices[name] = TierChoice(
-                name, pinned, api.impls[pinned].priority, probed=False)
-            continue
         best: Implementation | None = None
         rejected: list[tuple[str, str]] = []
-        candidates = [] if profile is None else sorted(
-            (i for i in api.impls.values() if i.supports(profile)),
-            key=lambda i: -i.priority)
+        candidates = [] if profile is None else [
+            i for i in api.impls.values() if i.supports(profile)]
         for impl in candidates:
             err = (_run_probe(impl, profile)
                    if probe and impl.probe is not None else None)
@@ -212,14 +194,10 @@ def bind(profile: Any = None, *, overrides: Mapping[str, str] | None = None,
                 continue
             best = impl
             break
-        if best is None:
-            choices[name] = TierChoice(name, REFERENCE, 0, probed=False,
-                                       rejected=tuple(rejected))
-        else:
-            choices[name] = TierChoice(
-                name, best.provider, best.priority,
-                probed=probe and best.probe is not None,
-                rejected=tuple(rejected))
+        choices[name] = TierChoice(
+            name, REFERENCE if best is None else best.provider,
+            probed=probe and best is not None and best.probe is not None,
+            rejected=tuple(rejected))
     return Binding(choices, label)
 
 
@@ -237,9 +215,17 @@ def use(binding: Binding):
 
 
 def call(api_name: str, *args, **kwargs):
-    """Invoke an API through the current binding; outside any ``use()``
-    scope the reference runs."""
+    """Invoke an API through the current binding. Outside any ``use()``
+    scope the reference runs, and only on CPU tensors: a tensor on another
+    device raises rather than take the plain path unseen."""
     binding = current_binding()
     if binding is not None and api_name in binding:
         return binding[api_name](*args, **kwargs)
+    for a in (*args, *kwargs.values()):
+        device = getattr(a, "device", None)
+        if device is not None and getattr(device, "type", "cpu") != "cpu":
+            raise HookError(
+                f"{api_name!r} called on {device} with no binding in scope: "
+                "wrap the call in hooks.use(ops.bind_for(device)), or in "
+                "hooks.use(hooks.bind(None)) for the plain tier")
     return get_api(api_name).reference(*args, **kwargs)

@@ -2,8 +2,8 @@
 
 Every API gets its ``torch-ref`` tier (``kernels/ref.py``, the reference).
 The three APIs of the serving path that the JAX package ran through Pallas
-TPU kernels also get a ``cuda-sm90`` tier, priority 20: the hand-written
-Hopper kernels, bound on a profile that advertises ``cuda-sm90``.
+TPU kernels also get a ``cuda-sm90`` tier: the hand-written Hopper kernels,
+bound on a profile that advertises ``cuda-sm90``.
 
 Each ``cuda-sm90`` tier carries a probe that builds the kernels and runs a
 tiny case on the card against the plain version. On a GPU profile a failed
@@ -13,8 +13,6 @@ probe raises at bind time (``core/hooks.py``).
 and stay plain PyTorch (``torch.matmul`` for products).
 """
 from __future__ import annotations
-
-from typing import Any
 
 import torch
 
@@ -90,17 +88,17 @@ def _register() -> None:
         ref.chunk_attention)
     impl = hooks.register_impl
     impl("rmsnorm", HOPPER, _rms.rmsnorm, supports=_supports_hopper,
-         priority=20, probe=_probe_rmsnorm)
+         probe=_probe_rmsnorm)
     impl("attention", HOPPER, _fa.flash_attention, supports=_supports_hopper,
-         priority=20, probe=_probe_flash)
+         probe=_probe_flash)
     impl("decode_attention", HOPPER, _dec.decode_attention,
-         supports=_supports_hopper, priority=20, probe=_probe_decode)
+         supports=_supports_hopper, probe=_probe_decode)
 
 
 _register()
 
 
-def bind_for(device: torch.device, **kwargs: Any) -> hooks.Binding:
+def bind_for(device: torch.device) -> hooks.Binding:
     """The probed binding for ``device``: the Hopper tiers on an H100, the
     reference on the CPU."""
-    return hooks.bind(profile_for(device), probe=True, **kwargs)
+    return hooks.bind(profile_for(device), probe=True)

@@ -19,7 +19,7 @@ from repro_torch.core.profile import (H100_SM90, PORTABLE_CPU,  # noqa: E402
                                       resolve_device)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
@@ -114,14 +114,28 @@ def test_failed_probe_on_a_cpu_profile_is_recorded():
         assert manifest["apis"][api]["rejected"][0][0] == ops.HOPPER
 
 
-def test_overrides_pin_and_reject_unknowns():
-    b = hooks.bind(None, overrides={"attention": ops.HOPPER})
-    assert b.providers()["attention"] == ops.HOPPER
-    assert b["attention"].__module__.endswith("flash_attention")
-    with pytest.raises(hooks.HookError):
-        hooks.bind(None, overrides={"attention": "no-such-tier"})
-    with pytest.raises(hooks.HookError):
-        hooks.bind(None, overrides={"no_such_api": hooks.REFERENCE})
+def test_call_without_a_binding_refuses_tensors_off_the_cpu():
+    """Off the CPU (here the meta device stands in for the card) a call
+    with no binding in scope raises instead of running the plain tier
+    unseen; the plain tier runs there only when it is bound explicitly."""
+    x, w = torch.ones(2, 8, device="meta"), torch.zeros(8, device="meta")
+    q = torch.ones(2, 4, 16, device="meta")
+    kc = torch.ones(2, 8, 2, 16, device="meta")
+    lengths = torch.ones(2, dtype=torch.int32, device="meta")
+    with pytest.raises(hooks.HookError, match="no binding"):
+        hooks.call("rmsnorm", x, w)
+    with pytest.raises(hooks.HookError, match="no binding"):
+        hooks.call("decode_attention", torch.ones(2, 4, 16),
+                   torch.ones(2, 8, 2, 16), torch.ones(2, 8, 2, 16),
+                   lengths=lengths)
+    with pytest.raises(hooks.HookError, match="no binding"):
+        layers.norm({"w": w}, x)
+    with hooks.use(hooks.bind(None)):
+        assert hooks.call("rmsnorm", x, w).device.type == "meta"
+        assert hooks.call("decode_attention", q, kc, kc,
+                          lengths=lengths).shape == (2, 4, 16)
+    assert hooks.call("rmsnorm", torch.ones(2, 8),
+                      torch.zeros(8)).shape == (2, 8)
 
 
 def test_call_dispatches_through_the_innermost_binding():

@@ -21,6 +21,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.core import hooks  # noqa: E402
+from repro_torch.core.profile import PORTABLE_CPU  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.models import bridge  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -231,11 +232,14 @@ def test_eos_stops_generation_like_jax(model, monkeypatch):
 
 
 def test_kernel_tier_wrappers_serve_on_cpu(model, monkeypatch):
-    """The cuda-sm90 tier pinned on the CPU: each wrapper takes its plain
-    route, streams and logits still match JAX, and no launch is counted."""
-    binding = hooks.bind(None, overrides={
-        api: ops.HOPPER for api in ("rmsnorm", "attention",
-                                    "decode_attention")})
+    """The cuda-sm90 tier bound on a CPU profile that carries its tag: each
+    wrapper takes its plain route, streams and logits still match JAX, and
+    no launch is counted."""
+    profile = dataclasses.replace(PORTABLE_CPU, name="cpu-with-hopper-tag",
+                                  capabilities=frozenset({ops.HOPPER}))
+    binding = hooks.bind(profile)
+    assert all(binding.providers()[api] == ops.HOPPER
+               for api in ("rmsnorm", "attention", "decode_attention"))
     before = dict(build.LAUNCHES)
     eng, _ = _check_against_jax(model, "more_requests_than_slots",
                                 monkeypatch, binding)
